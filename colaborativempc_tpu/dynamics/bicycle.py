@@ -104,7 +104,8 @@ def f_continuous(x: jnp.ndarray, u: jnp.ndarray, kappa, p: ModelParams):
     base_nl.py:231-304 and LPV_Planner.py:519-571).
     """
     A, B = lpv_matrices(x, u, kappa, p)
-    return A @ x + B @ u
+    return (jnp.matmul(A, x, precision=jax.lax.Precision.HIGHEST)
+            + jnp.matmul(B, u, precision=jax.lax.Precision.HIGHEST))
 
 
 def discretize_euler(A: jnp.ndarray, B: jnp.ndarray, dt):
@@ -122,7 +123,7 @@ def lpv_discrete_horizon(states: jnp.ndarray, inputs: jnp.ndarray,
       kappas: (N,) curvature at each stage's s.
     Returns: Ad (N, 9, 9), Bd (N, 9, 2).
 
-    The TPU-native replacement for the per-stage Python loop of
+    The on-device replacement for the per-stage Python loop of
     ``_EstimateABC`` (reference LPV_Planner.py:477-591): one vmap over stages.
     """
     def one(x, u, k):

@@ -117,5 +117,6 @@ def linearize_pacejka(x: jnp.ndarray, u: jnp.ndarray, kappa,
 
     Ad = jax.jacfwd(fd, argnums=0)(x, u)
     Bd = jax.jacfwd(fd, argnums=1)(x, u)
-    rd = fd(x, u) - Ad @ x - Bd @ u
+    rd = (fd(x, u) - jnp.matmul(Ad, x, precision=jax.lax.Precision.HIGHEST)
+          - jnp.matmul(Bd, u, precision=jax.lax.Precision.HIGHEST))
     return Ad, Bd, rd

@@ -1,6 +1,6 @@
 """Vectorised Frenet <-> Cartesian transforms and track lookups.
 
-TPU-first replacements for the reference's per-call Python segment loops
+On-device replacements for the reference's per-call Python segment loops
 (``mapManager/track_initialization.py:325-535``, ``utilities/misc.py:78-126``):
 every query is a gather over the precompiled segment table, fully jittable and
 vmappable over horizon stages, agents and scenario batches.

@@ -1,6 +1,6 @@
 """Geometric separating hyperplanes between agent pairs.
 
-Closed-form, fully vectorised over (horizon, neighbour) — the TPU-native
+Closed-form, fully vectorised over (horizon, neighbour) — the on-device
 equivalent of the reference's double Python loop
 (``planner/lib/plan_lib/planes/compute_plane.py:41-68``).
 

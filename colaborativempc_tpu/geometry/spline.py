@@ -6,7 +6,7 @@ parametric cubic splines x(s), y(s), re-parameterises them by arc length with
 two successive fit/resample passes, and projects states onto the spline with a
 Newton iteration (``Matlab-tests/MPCC-master/C++/Spline/arc_length_spline.h:40-52``,
 ``arc_length_spline.cpp`` outlierRemoval/fitSpline/porjectOnSpline, JSON track
-loader ``Params/track.cpp``). This module reproduces that capability TPU-first:
+loader ``Params/track.cpp``). This module reproduces that capability on-device first:
 the fit runs once on host (float64 numpy/scipy), then emits the same flat
 per-segment ``Track`` table every other geometry op in this framework already
 consumes — so LPV/NL/MPCC planners race measured tracks with zero new device
@@ -289,8 +289,9 @@ def project_on_spline(track: Track, x, y, s_guess, lane: int = 0,
         t_hat = jnp.stack([jnp.cos(theta), jnp.sin(theta)])
         n_hat = jnp.stack([-jnp.sin(theta), jnp.cos(theta)])
         diff = pp - p
-        jac = 2.0 * jnp.dot(diff, t_hat)
-        hess = 2.0 + 2.0 * kappa * jnp.dot(diff, n_hat)  # |p'| = 1 exactly
+        hi = jax.lax.Precision.HIGHEST
+        jac = 2.0 * jnp.dot(diff, t_hat, precision=hi)
+        hess = 2.0 + 2.0 * kappa * jnp.dot(diff, n_hat, precision=hi)  # |p'| = 1
         step = jac / jnp.where(jnp.abs(hess) < 1e-6,
                                jnp.where(hess < 0, -1e-6, 1e-6), hess)
         s_new = wrap_s(track, s - step, lane)

@@ -1,6 +1,6 @@
 """Track database and segment-table construction.
 
-TPU-first re-design of the reference track manager
+On-device re-design of the reference track manager
 (``planner/lib/plan_lib/mapManager/track_initialization.py:10-300``): instead of a
 Python ``Map`` object with per-call segment search loops, a track is compiled once
 (on host, float64) into a flat per-segment table of jnp arrays — start pose,

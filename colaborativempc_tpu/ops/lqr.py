@@ -1,6 +1,6 @@
 """Stage-structured equality-constrained QP (LQR) solves via Riccati scans.
 
-This is the factorisation kernel of the on-device QP engine — the TPU-native
+This is the factorisation kernel of the on-device QP engine — the on-device
 equivalent of the sparse direct solvers the reference calls out to (OSQP's
 KKT factorisation, ``LPV_Planner.py:222-239``; HPIPM's Riccati-structured
 OCP-QP solver, ``MPCC-master/C++/Interfaces/hpipm_interface.cpp``). Instead
@@ -32,10 +32,10 @@ from typing import NamedTuple
 import jax
 import jax.numpy as jnp
 
-# The Riccati recursion is numerically sensitive: on TPU, plain f32 matmuls
-# route through the MXU with bf16 inputs by default, which is catastrophic
-# for P-matrix products at long horizons (N=125 diverges to NaN). These are
-# tiny matrices - full f32 costs nothing.
+# The Riccati recursion is numerically sensitive: a float32 product at the
+# default precision may run with reduced-precision inputs (TF32 on the
+# H100's tensor cores), which is catastrophic for P-matrix products at long
+# horizons (N=125 diverges). Every product here is pinned to full float32.
 _mm = partial(jnp.matmul, precision=jax.lax.Precision.HIGHEST)
 
 
@@ -75,7 +75,8 @@ def lqr_factorize(dyn: LQRDynamics, cost: LQRCost,
     ``unroll`` unrolls the stage scan: at long horizons the per-stage work
     (11x11 matvecs) is far smaller than the loop-step overhead, so the
     sequential sweep is latency-bound, not FLOP-bound — unrolling packs
-    several stages into one loop step (~2x at N=125 on v5e, BENCH.md).
+    several stages into one loop step. Its effect on the H100 is not yet
+    measured.
     """
     nz = dyn.F.shape[-1]
 
@@ -157,8 +158,8 @@ def _affine_scan(M: jnp.ndarray, b: jnp.ndarray, x0: jnp.ndarray,
     (r_prim ~ 1, measured) while short blocks match the sequential scan;
     the composite span is the conditioning knob, the cross-block carry is
     plain well-conditioned state propagation. Measured on the N=125
-    Highway hard window (three agents jamming into the k=0.35 curve,
-    BENCH.md): block=16 leaves a few ADMM solves stalled above a 1e-4
+    Highway hard window (three agents jamming into the k=0.35 curve):
+    block=16 leaves a few ADMM solves stalled above a 1e-4
     residual tolerance where block<=8 — like the sequential scan —
     converges; 8 is the default.
     """
@@ -220,11 +221,11 @@ def lqr_affine_solve_assoc(dyn: LQRDynamics, fac: LQRFactors,
     full-span composition (block=None) diverges and block=16 stalls a few
     hard solves short of tight tolerances.
 
-    Measured guidance (TPU v5e, N=125, nz=11): wins ~2x end-to-end for
-    LATENCY-bound single-fleet solves (BENCH.md); for throughput-bound
-    wide batches the sequential scan wins — it stays on-chip while the
-    associative combine materialises O(N log block) nz x nz products
-    through HBM. Benchmark per regime before enabling.
+    Intended for LATENCY-bound single-fleet solves at long horizons; for
+    throughput-bound wide batches the sequential scan is expected to win,
+    since the associative combine materialises O(N log block) nz x nz
+    products through device memory. The choice was made by timings on
+    another accelerator and awaits re-measurement on the H100.
     """
     # costate: p_k = Acl_k' p_{k+1} + c_k with
     # c_k = q_k + Acl_k' m_k - Qxu Quu^{-1} r_k

@@ -1,13 +1,13 @@
 """Multi-chip sharded fleet execution over a device mesh.
 
-The TPU-native replacement for the reference's process-per-agent ROS
+The on-device replacement for the reference's process-per-agent ROS
 deployment (``ROS/src/planner_experiments/src/LPV_ROS_main.py``,
 ``launch/LPV_car_spawner.launch``): agents live on a mesh axis and scenario
 batches (Monte-Carlo sweeps, the reference's ``experiment_battery.py``) on a
 second axis. The per-step plan exchange that ROS performed over TCPROS
 pub/sub with hand-rolled barrier flags (``LPV_ROS_main.py:124-151``) is ONE
 ``jax.lax.all_gather`` of (X, Y) horizon trajectories over the agent axis —
-riding ICI instead of loopback TCP — inside a single jitted SPMD program.
+riding NVLink (an NCCL all-gather) instead of loopback TCP — inside a single jitted SPMD program.
 
 Layout:
     mesh axes ("scen", "agent")
@@ -25,8 +25,9 @@ from colaborativempc_tpu.config.params import ExperimentConfig, lpv_gains
 from colaborativempc_tpu.geometry import Track
 from colaborativempc_tpu.planners.lpv import lpv_solve, LPVSolution
 from colaborativempc_tpu.runtime.simulate import (
-    FleetState, StepMetrics, _apply_exec_beta, _per_agent_limits,
-    _sep_filter_beta, escalate_holds, hold_vx_scale, lateral_wall,
+    FleetState, StepMetrics, _apply_exec_beta, _neighbour_index,
+    _per_agent_limits, _sep_filter_beta, escalate_holds, hold_vx_scale,
+    lateral_wall,
 )
 
 
@@ -42,17 +43,15 @@ def _sharded_lpv_parts(track: Track, cfg: ExperimentConfig,
     n_ag = cfg.n_agents
     multi = n_ag > 1
     # full stage-scan unroll for the multi-agent fleet step at short
-    # horizons: +9% measured on the H=20 headline rollout; single-agent
-    # batches measured -14%, so this stays a caller-scoped default
-    # (BENCH.md round-4 unroll sweep). NOTE: on this MESH path the
-    # benefit is extrapolated from the single-device measurement, not
-    # re-measured under shard_map (where full unroll also lengthens the
-    # already-long first compile); pin SolverConfig.unroll to override
-    # either way.
+    # horizons, the same caller-scoped default as the single-device step
+    # (runtime/simulate.py make_lpv_fleet_step); it awaits re-measurement
+    # on the H100, here and under shard_map (where full unroll also
+    # lengthens the first compile). Pin SolverConfig.unroll to override.
     fleet_unroll = cfg.solver.unroll
     if fleet_unroll is None and multi and cfg.N <= 24:
         fleet_unroll = cfg.N
     limits_pa = _per_agent_limits(cfg)  # heterogeneous fleets supported
+    ns = jnp.asarray(_neighbour_index(n_ag))
 
     def one_agent(lane, limits, x0, x_lin, u_lin, u_old, w, y, rho_scale,
                   neighbours_xy, neigh_boost):
@@ -65,8 +64,6 @@ def _sharded_lpv_parts(track: Track, cfg: ExperimentConfig,
             admm_iters=cfg.solver.admm_budget(), rho=cfg.solver.rho,
             alpha_relax=cfg.solver.alpha_relax,
             eps=cfg.solver.eps, lane=lane,
-            use_pallas=cfg.solver.use_pallas,
-            pallas_interpret=cfg.solver.pallas_interpret,
             epoch_len=cfg.solver.epoch_len, unroll=fleet_unroll,
             assoc=cfg.solver.assoc)
 
@@ -104,7 +101,7 @@ def _sharded_lpv_parts(track: Track, cfg: ExperimentConfig,
         # recovery escalation ladder (shard-local, runtime/simulate.py)
         state = escalate_holds(track, cfg, state, lanes)
 
-        # THE exchange: gather every agent's (X, Y) plan over ICI
+        # THE exchange: gather every agent's (X, Y) plan (NCCL all-gather over NVLink)
         xy_local = state.x_pred[:, :, :, 7:9]          # (S_l, A_l, N+1, 2)
         all_xy = jax.lax.all_gather(
             xy_local, agent_axis, axis=1, tiled=True)  # (S_l, n_ag, N+1, 2)
@@ -116,9 +113,10 @@ def _sharded_lpv_parts(track: Track, cfg: ExperimentConfig,
             hold_local, agent_axis, axis=1, tiled=True)   # (S_l, n_ag)
 
         def neighbours_of(global_id, all_xy_s):
-            # all agents except global_id, via a dynamic roll
-            rolled = jnp.roll(all_xy_s, -(global_id + 1), axis=0)
-            return rolled[: n_ag - 1]                  # (n_nb, N+1, 2)
+            # all agents except global_id, in the single-device step's
+            # order (ascending ids), so both lay out the neighbour rows
+            # and their warm starts alike
+            return all_xy_s[ns[global_id]]             # (n_nb, N+1, 2)
 
         def solve_scenario(x0, x_lin, u_lin, u_old, w, y, rs, all_xy_s,
                            all_hold_s, lanes_s, vxs_s):

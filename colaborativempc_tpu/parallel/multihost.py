@@ -4,8 +4,9 @@ The reference scales out by launching one ROS process per agent on one
 machine (``launch/experiment.launch``); there is no multi-machine story.
 Here scale-out is the standard JAX multi-controller model: every host runs
 the same program, ``jax.distributed.initialize`` wires the hosts together,
-and the global mesh spans all devices — intra-slice exchanges ride ICI,
-host-boundary collectives ride DCN. The fleet/OCD steps in parallel/ work
+and the global mesh spans all devices — collectives between the GPUs of
+one host are NCCL over NVLink, those between hosts NCCL over the host
+network. The fleet/OCD steps in parallel/ work
 unchanged on a global mesh; only array placement differs (use
 ``jax.make_array_from_process_local_data`` for host-local inputs).
 
@@ -28,7 +29,9 @@ def initialize_distributed(coordinator_address: Optional[str] = None,
                            process_id: Optional[int] = None) -> None:
     """Initialise the multi-controller runtime (no-op on a single host).
 
-    On TPU pods with standard env metadata, call with no args.
+    Pass all three arguments on a GPU cluster (``coordinator_address`` as
+    ``host:port``); with none, JAX must find the cluster from its
+    environment.
     """
     if num_processes is not None and num_processes > 1:
         jax.distributed.initialize(coordinator_address=coordinator_address,

@@ -6,8 +6,8 @@ termination-detection protocol (``ROS/src/planner_experiments/src/
 OCD_ROS_main.py:172-241``). Here the same algorithm runs as one SPMD
 program over a ("scen", "agent") device mesh: per OCD iteration each agent
 shard solves its SQP sub-problem locally, the plan exchange is ONE
-``all_gather`` over the agent axis (ICI), the dual ascent is computed
-redundantly from the gathered plans (cheap, keeps lambdas replicated), and
+``all_gather`` over the agent axis (an NCCL collective over NVLink), the
+dual ascent is computed redundantly from the gathered plans (cheap, keeps lambdas replicated), and
 the reference's `updated`/`finished` flag protocol collapses into the
 synchronous collective semantics of the mesh.
 """
@@ -16,7 +16,6 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
-import numpy as np
 import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
@@ -29,8 +28,8 @@ from colaborativempc_tpu.runtime.ocd import (
     _contain_nonfinite, _bisector_planes,
 )
 from colaborativempc_tpu.runtime.simulate import (
-    _apply_exec_beta, _per_agent_limits, _sep_filter_beta, escalate_holds,
-    lateral_wall,
+    _apply_exec_beta, _neighbour_index, _per_agent_limits, _sep_filter_beta,
+    escalate_holds, lateral_wall,
 )
 
 
@@ -76,12 +75,10 @@ def _sharded_ocd_parts(track: Track, cfg: ExperimentConfig,
             "ocd.sweep='gauss_seidel' serialises agents within an iteration "
             "and is incompatible with the agent-sharded mesh step (agents "
             "are parallel shards); use the single-program runtime.ocd path "
-            "or sweep='jacobi'. Measured (cmpc-stress gs-tradeoff, TPU "
-            "v5e, batch 16, N=20): GS needs the SAME mean OCD iterations "
-            "as Jacobi at batch (6.0) while costing +15% wall per fleet "
-            "step from the agent serialisation, so scaling out keeps "
-            "Jacobi — GS's fresher-data advantage only materialises "
-            "single-fleet (44 ms/5 it vs 55 ms/4 it, BENCH.md), where the "
+            "or sweep='jacobi'. At batch 16, N=20, GS needed the same mean "
+            "OCD iterations as Jacobi (6.0) while serialising the agents "
+            "(cmpc-stress gs-tradeoff), so scaling out keeps Jacobi; GS's "
+            "fresher-data advantage shows only single-fleet, where the "
             "single-program path already provides it.")
     limits_pa = _per_agent_limits(cfg)
 
@@ -97,16 +94,14 @@ def _sharded_ocd_parts(track: Track, cfg: ExperimentConfig,
             admm_iters=cfg.solver.admm_budget(), rho=cfg.solver.rho,
             alpha_relax=cfg.solver.alpha_relax, eps=cfg.solver.eps,
             planes0=pl,
-            use_pallas=cfg.solver.use_pallas,
-            pallas_interpret=cfg.solver.pallas_interpret,
             epoch_len=cfg.solver.epoch_len, unroll=cfg.solver.unroll,
             assoc=cfg.solver.assoc)
 
     # static neighbour-id table: nbs[i] = the ids every agent i solves
-    # against, in its local ordering (matches the rolled gather below)
-    nbs = jnp.asarray(np.stack([
-        np.roll(np.arange(n_ag), -(i + 1))[: n_ag - 1]
-        for i in range(n_ag)])) if n_ag > 1 else jnp.zeros((1, 1), int)
+    # against, in the single-device step's order (ascending ids), so both
+    # lay out the neighbour rows and their warm starts alike
+    ns = jnp.asarray(_neighbour_index(n_ag))     # (n_ag, n_ag - 1)
+    nbs = ns if n_ag > 1 else jnp.zeros((1, 1), int)
 
     def local_step(state: OCDFleetState):
         A_l = state.x0.shape[1]
@@ -150,7 +145,7 @@ def _sharded_ocd_parts(track: Track, cfg: ExperimentConfig,
             solver_lanes = lanes
 
         def ocd_iteration(st: _ShardedLoopState) -> _ShardedLoopState:
-            # exchange over ICI
+            # exchange (NCCL all-gather over NVLink)
             all_xy = jax.lax.all_gather(
                 st.x_pred[:, :, :, 7:9], agent_axis, axis=1,
                 tiled=True)                            # (S_l, n_ag, N+1, 2)
@@ -165,9 +160,8 @@ def _sharded_ocd_parts(track: Track, cfg: ExperimentConfig,
                               ln):
                     gid = gids[la]
                     lim_a = jax.tree.map(lambda v: v[gid], limits_pa)
-                    rolled = jnp.roll(all_xy_s, -(gid + 1), axis=0)
-                    nb_xy = jnp.swapaxes(rolled[: n_ag - 1], 0, 1)
-                    nb_ids = jnp.roll(ids, -(gid + 1))[: n_ag - 1]
+                    nb_ids = ns[gid]
+                    nb_xy = jnp.swapaxes(all_xy_s[nb_ids], 0, 1)
                     mmask = (gid < nb_ids).astype(xpa.dtype)
                     lam_i = lam[gid, nb_ids, :]        # (n_nb, N)
                     return one_agent(lim_a, ln, x0a, xpa, upa, uoa, lam_i,

@@ -1,6 +1,6 @@
 """LPV collaborative MPC planner (the reference's QP planner family).
 
-TPU-native re-design of ``PlannerLPV``
+On-device re-design of ``PlannerLPV``
 (``planner/lib/plan_lib/distributedPlanner/LPV_Planner.py``): instead of
 assembling one big sparse QP (block_diag loops, :279-475) and calling OSQP
 (:192-249), the problem is kept in its natural stage structure — an
@@ -15,7 +15,7 @@ weight Qs ~ 1e7 (:294-303). Here each slacked constraint becomes a SOFT row
 of the stage QP (ops/admm.py soft bounds) — the analytically identical
 formulation (a quadratically-penalised slack on a single row IS a soft
 constraint) that keeps the 1e7 weights out of the Riccati matrices, which
-matters for float32 conditioning on TPU. One deviation: the reference shares
+matters for float32 conditioning. One deviation: the reference shares
 one obstacle slack across all neighbours of a stage (K[i,-1] = -1 for every
 i, :271), i.e. penalises the max violation; we penalise each pair's
 violation, which upper-bounds the reference's penalty.
@@ -34,6 +34,7 @@ from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
+import jax
 import jax.numpy as jnp
 
 from colaborativempc_tpu.config.params import Gains, ModelParams, SysLimits
@@ -80,7 +81,7 @@ def _augment_dynamics(Ad: jnp.ndarray, Bd: jnp.ndarray):
 
 
 #: Cap on effective soft-constraint weights. The reference uses Qs = 1e7
-#: (config_LPV.py:6) which OSQP tolerates in float64 direct solves; on TPU
+#: (config_LPV.py:6) which OSQP tolerates in float64 direct solves; here
 #: (float32, first-order splitting) that stiffness costs hundreds of dual
 #: iterations for zero behavioural gain — the binding forces are O(100), so
 #: 1e4 already keeps violations at the ~5e-3 level, below solver tolerance.
@@ -180,8 +181,10 @@ def build_lpv_qp(track: Track, gains: Gains, limits: SysLimits,
 def _violations(qp: StageQP, z: jnp.ndarray, c: jnp.ndarray) -> jnp.ndarray:
     """Realised soft-constraint violations, reported like the reference's
     slack predictions sPred (vel, ey, planes)."""
-    v = (jnp.einsum("kmi,ki->km", qp.D, z[:-1])
-         + jnp.einsum("kmi,ki->km", qp.E, c))
+    v = (jnp.einsum("kmi,ki->km", qp.D, z[:-1],
+                    precision=jax.lax.Precision.HIGHEST)
+         + jnp.einsum("kmi,ki->km", qp.E, c,
+                      precision=jax.lax.Precision.HIGHEST))
     over = jnp.maximum(v - qp.hi, 0.0) + jnp.maximum(qp.lo - v, 0.0)
     s_vel = over[:, 0]
     s_ey = over[:, 1]
@@ -198,8 +201,6 @@ def lpv_solve(track: Track, gains: Gains, limits: SysLimits,
               admm_iters: int = 100, rho: float = 10.0,
               alpha_relax: float = 1.6,
               eps: float = 1e-4, lane: int = 0,
-              use_pallas: bool = False,
-              pallas_interpret: bool = False,
               epoch_len=None, unroll=None,
               assoc: bool = False,
               neigh_boost=None) -> LPVSolution:
@@ -245,8 +246,6 @@ def lpv_solve(track: Track, gains: Gains, limits: SysLimits,
                                    rho_scale0=rho_scale0,
                                    iters=admm_iters, rho=rho,
                                    alpha=alpha_relax, eps=eps,
-                                   use_pallas=use_pallas,
-                                   pallas_interpret=pallas_interpret,
                                    epoch_len=epoch_len, unroll=unroll,
                                    assoc=assoc)
 

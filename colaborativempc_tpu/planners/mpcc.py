@@ -220,8 +220,10 @@ def build_mpcc_qp(track: Track, gains: MPCCGains, p: PacejkaParams,
 
     vals, gx, gu = jax.vmap(tire_rows)(x_bar[:N], u_bar)  # (N,3),(N,3,9),(N,3,2)
     bound = (-vals
-             + jnp.einsum("kri,ki->kr", gx, x_bar[:N])
-             + jnp.einsum("kri,ki->kr", gu, u_bar))
+             + jnp.einsum("kri,ki->kr", gx, x_bar[:N],
+                          precision=jax.lax.Precision.HIGHEST)
+             + jnp.einsum("kri,ki->kr", gu, u_bar,
+                          precision=jax.lax.Precision.HIGHEST))
     for rr in range(3):
         row = 4 + rr - 1  # rows 3, 4, 5
         D = D.at[:, row, :NX].set(gx[:, rr, :].astype(dtype))
@@ -421,12 +423,11 @@ class MPCCConfig:
     # N-dependent defaults). assoc = blocked log-depth affine solves.
     # assoc=None resolves to True at N >= 48 with epoch_len 15 — the
     # same single-fleet latency schedule as the collaborative planners
-    # (runtime/simulate.py resolve_single_fleet_schedule), MEASURED on
-    # the racing driver at the reference's N=60: p50 49.0 -> 32.5 ms,
-    # p95 59.5 -> 37.8 ms, identical race progress, 100% feasible
-    # (bench_suite --mpcc-assoc, TPU v5e, BENCH.md round 5). Pin
-    # True/False to override; short horizons (N < 48) keep the
-    # sequential scan (assoc pays ~3x FLOPs and loses there).
+    # (runtime/simulate.py resolve_single_fleet_schedule), chosen on the
+    # racing driver at the reference's N=60 for lower step latency with
+    # identical race progress on another accelerator; it awaits
+    # re-measurement on the H100. Pin True/False to override; short
+    # horizons (N < 48) keep the sequential scan (assoc pays ~3x FLOPs).
     epoch_len: Optional[int] = None
     unroll: Optional[int] = None
     assoc: Optional[bool] = None

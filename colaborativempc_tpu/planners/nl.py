@@ -1,6 +1,6 @@
 """Nonlinear collaborative MPC planners (the reference's NLP family).
 
-TPU-native re-design of ``base_nl_constr`` + ``PlannerEu``
+On-device re-design of ``base_nl_constr`` + ``PlannerEu``
 (``planner/lib/plan_lib/nonLinDistribPlanner/base_nl.py``,
 ``NL_Planner_Eu.py``): instead of a CasADi Opti graph solved by IPOPT
 (NL_Planner_Eu.py:172-183), the nonlinear OCP is solved by SQP — autodiff
@@ -88,7 +88,9 @@ def _linearize_horizon(x_bar: jnp.ndarray, u_bar: jnp.ndarray,
     def one(x, u, k):
         Ad = jax.jacfwd(fd, argnums=0)(x, u, k)
         Bd = jax.jacfwd(fd, argnums=1)(x, u, k)
-        rd = fd(x, u, k) - Ad @ x - Bd @ u
+        hi = jax.lax.Precision.HIGHEST
+        rd = (fd(x, u, k) - jnp.matmul(Ad, x, precision=hi)
+              - jnp.matmul(Bd, u, precision=hi))
         return Ad, Bd, rd
 
     return jax.vmap(one)(x_bar, u_bar, kappas)
@@ -340,8 +342,6 @@ def nl_solve(track: Track, gains: Gains, limits: SysLimits,
              alpha_relax: float = 1.6,
              eps: float = 1e-4,
              planes0: Optional[jnp.ndarray] = None,
-             use_pallas: bool = False,
-             pallas_interpret: bool = False,
              epoch_len=None, unroll=None,
              assoc: bool = False) -> NLSolution:
     """One nonlinear OCD sub-problem solve (reference PlannerEu.solve).
@@ -370,9 +370,8 @@ def nl_solve(track: Track, gains: Gains, limits: SysLimits,
                          planes0=pl)
         sol = admm_solve(qp, z0, w0=w, y0=y, rho_scale0=rs,
                          iters=admm_iters, rho=rho, alpha=alpha_relax,
-                         eps=eps, use_pallas=use_pallas,
-                         pallas_interpret=pallas_interpret,
-                         epoch_len=epoch_len, unroll=unroll, assoc=assoc)
+                         eps=eps, epoch_len=epoch_len, unroll=unroll,
+                         assoc=assoc)
         x_new = sol.z[:, :NX]
         u_new = sol.z[1:, NX:]
         x_mix = sqp_mix * x_new + (1.0 - sqp_mix) * x_lin

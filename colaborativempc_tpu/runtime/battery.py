@@ -3,7 +3,7 @@
 The reference runs a SERIAL nested grid over horizons and gains, re-invoking
 the full experiment per combination (``planner/scripts/experiment_battery.py``
 :15-38 — with an unused ``active_threads = 3`` hinting at intended
-concurrency). TPU-native: gain combinations become a vmapped batch axis of
+concurrency). On device: gain combinations become a vmapped batch axis of
 the fleet step — every combination advances simultaneously on one chip (or
 sharded over a mesh, BASELINE.json config #5). Horizon sweeps change array
 shapes and therefore remain an outer host loop (one compile per N).
@@ -72,9 +72,7 @@ def run_lpv_battery(cfg: ExperimentConfig, grid: Sequence[Gains],
             w0=w, y0=y, rho_scale0=rs,
             admm_iters=cfg.solver.admm_budget(), rho=cfg.solver.rho,
             alpha_relax=cfg.solver.alpha_relax,
-            eps=cfg.solver.eps, lane=cfg.lane,
-            use_pallas=cfg.solver.use_pallas,
-            pallas_interpret=cfg.solver.pallas_interpret)
+            eps=cfg.solver.eps, lane=cfg.lane)
 
     def fleet_step(gains, state: FleetState):
         agents_xy = jnp.swapaxes(state.x_pred[:, :, 7:9], 0, 1)

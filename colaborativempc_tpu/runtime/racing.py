@@ -236,7 +236,7 @@ def make_mpcc_step(track: Track, cfg: MPCCConfig):
 
 def make_mpcc_rollout(track: Track, cfg: MPCCConfig, steps: int):
     """Fixed-step fully-on-device closed-loop race: ``lax.scan`` over
-    control steps (the TPU-native twin of ``make_lpv_fleet_rollout`` for
+    control steps (the on-device twin of ``make_lpv_fleet_rollout`` for
     the racing planner; vmap it for batched gain/track sweeps)."""
     step = make_mpcc_step(track, cfg)
 

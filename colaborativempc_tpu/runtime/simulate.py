@@ -1,10 +1,10 @@
 """Closed-loop multi-agent experiment runtimes.
 
 The in-process scheduler of the reference (``planner/scripts/LPV_HP_N_main.py``
-:57-122, ``NL_EU_N_main.py:42-185``) re-designed TPU-first: the per-control-
-step work of ALL agents is one jitted function — agents are a vmapped batch
-axis (or a shard_map mesh axis, see parallel/), the trajectory exchange that
-ROS pub/sub performed (``OCD_ROS_main.py:89-91``) is a tensor transpose (one
+:57-122, ``NL_EU_N_main.py:42-185``) re-designed for the accelerator: the
+per-control-step work of ALL agents is one jitted function — agents are a
+vmapped batch axis (or a shard_map mesh axis, see parallel/), the trajectory
+exchange that ROS pub/sub performed (``OCD_ROS_main.py:89-91``) is a tensor transpose (one
 all_gather when sharded), and the host only runs the outer control loop and
 IO. The planning convention matches the reference: the MPC prediction IS the
 plant (x0 <- xPred[1], ``LPV_HP_N_main.py:106``).
@@ -43,7 +43,7 @@ class FleetState(NamedTuple):
     #   filter brakings (feeds the same vx_ref ramp as holds: a braked
     #   solve is FEASIBLE, so hold_count never sees it — without this
     #   counter a filter-braked cluster is a fixed point the planner can
-    #   park in, replanning the same closing step forever; BENCH.md r5)
+    #   park in, replanning the same closing step forever; round-5 study)
     jam_count: jnp.ndarray    # (n_ag,) int32 consecutive infeasible
     #   solves, NEVER reset by the escalation ladder (hold_count cycles
     #   0..hold_cold_k because the cold rung zeroes it) — drives the
@@ -112,7 +112,7 @@ def _sep_filter_beta(p0: jnp.ndarray, p1: jnp.ndarray, floor,
     agents of a closing pair by a common factor, and a symmetric full
     stop is a fixed point — two laterally-converging agents re-plan the
     same closing step forever and the fleet parks; measured on 2 of 8
-    stressed starts, BENCH.md round 5). Per pair the agent with the
+    stressed starts, round-5 study). Per pair the agent with the
     LOWER priority (arc progress s, ties by index) is the follower:
 
     - if the candidate pair distance ends >= g: nobody brakes;
@@ -210,7 +210,7 @@ def _sep_filter_beta(p0: jnp.ndarray, p1: jnp.ndarray, floor,
     # (eps(0.03 m^2) ~ 2e-9): a 1e-9 margin measured as a permanent
     # fleet-wide freeze — rounding noise tripped the fallback every
     # step while the true distances were unchanged (round-5 lane-3
-    # park, BENCH.md). Relative + absolute so it scales with distance.
+    # park). Relative + absolute so it scales with distance.
     p = p0 + beta[:, None] * delta
     dd = p[:, None] - p[None, :]
     dsq = jnp.sum(dd * dd, axis=-1)
@@ -229,7 +229,7 @@ def _apply_exec_beta(x_cur: jnp.ndarray, x_cand: jnp.ndarray,
     hard-braked agent kept its cruising vx while standing still, and the
     next linearisation planned from that phantom momentum — measured to
     end in a spin-and-reverse divergence after the jam cleared (round-5
-    lane-3 study, BENCH.md; the vx<0.2 straight-line switch in the LPV
+    lane-3 study; the vx<0.2 straight-line switch in the LPV
     embedding keeps near-zero speeds well-posed, dynamics/bicycle.py).
     Bit-identical to the candidate wherever beta == 1."""
     lerp = x_cur + beta[..., None] * (x_cand - x_cur)
@@ -272,7 +272,7 @@ def lateral_wall(track: Track, cfg: ExperimentConfig, x_cur: jnp.ndarray,
     canonical-course failure modes came through this door: an executed
     stage beyond the Frenet chart's validity (|ey| > 1/kappa) stranded
     an agent meters off the track, and a feasible-garbage spiral flew
-    another to s ~ +9900 (BENCH.md). The envelope bounds, per agent:
+    another to s ~ +9900. The envelope bounds, per agent:
 
     - arc advance: Delta-s in [-max_vel*dt, 2*max_vel*dt];
     - lateral offset: |ey| <= max(wall * halfwidth(s), current |ey|) —
@@ -336,7 +336,7 @@ def hold_vx_scale(cfg: ExperimentConfig, count, dtype=jnp.float32):
     retry competes less with the separation/lane rows while transient
     1-2-step holds retry at full speed.
 
-    Shape rationale (round-5 campaign, BENCH.md): the binary rung keeps
+    Shape rationale (round-5 campaign): the binary rung keeps
     transient holds — which the canonical courses' hard window produces
     and recovers from at full speed — entirely outside the pass, while
     engaging it exactly where the measured win lives (the round-4
@@ -366,7 +366,7 @@ def escalate_holds(track: Track, cfg: ExperimentConfig, state, lanes):
 
     Plan-holding (``hold_on_infeasible``) contains an infeasible solve by
     executing the previous plan one more stage — but an agent whose every
-    retry fails would hold forever (the s=17.7 jam, BENCH.md round-3
+    retry fails would hold forever (the s=17.7 jam, round-3 study
     perturbed-start study). This is the fleet-path port of the reference
     MPCC driver's failure ladder (``mpc.cpp:231-252`` n_no_solves_ ->
     resetInitialGuess; ``runtime/racing.py`` n_reset):
@@ -437,10 +437,10 @@ def make_lpv_fleet_step(track: Track, cfg: ExperimentConfig):
     ns = jnp.asarray(_neighbour_index(cfg.n_agents))
     multi = cfg.n_agents > 1
     # full stage-scan unroll for the multi-agent fleet step at short
-    # horizons: +9% measured on the H=20 headline rollout; single-agent
-    # batches measured -14%, so this stays a caller-scoped default
-    # (BENCH.md round-4 unroll sweep). An explicit SolverConfig.unroll
-    # pin always wins.
+    # horizons, a caller-scoped default chosen by timings on another
+    # accelerator (it slowed single-agent batches there); it awaits
+    # re-measurement on the H100. An explicit SolverConfig.unroll pin
+    # always wins.
     fleet_unroll = cfg.solver.unroll
     if fleet_unroll is None and multi and cfg.N <= 24:
         fleet_unroll = cfg.N
@@ -460,8 +460,6 @@ def make_lpv_fleet_step(track: Track, cfg: ExperimentConfig):
             admm_iters=cfg.solver.admm_budget(), rho=cfg.solver.rho,
             alpha_relax=cfg.solver.alpha_relax,
             eps=cfg.solver.eps, lane=lane,
-            use_pallas=cfg.solver.use_pallas,
-            pallas_interpret=cfg.solver.pallas_interpret,
             epoch_len=cfg.solver.epoch_len, unroll=fleet_unroll,
             assoc=cfg.solver.assoc)
 
@@ -510,7 +508,7 @@ def make_lpv_fleet_step(track: Track, cfg: ExperimentConfig):
         # zeroed) draws no boost from its neighbours even though its
         # brand-new warm-start trajectory is the least-validated plan in
         # the exchange — acceptable while the knob defaults off (measured
-        # ineffective against the observed near-passes, BENCH.md round 4);
+        # ineffective against the observed near-passes, round-4 study);
         # derive from pre-escalation counts if it is ever defaulted on.
         boost_sc = cfg.hold_sep_boost if cfg.hold_on_infeasible else 0.0
         hold_f = (state.hold_count > 0).astype(agents_xy.dtype) * boost_sc
@@ -535,13 +533,13 @@ def make_lpv_fleet_step(track: Track, cfg: ExperimentConfig):
             # pre-failure warm state. Without this, a capped unconverged
             # solve in the Highway curve congestion executes garbage,
             # degrades the next linearisation, and the fleet deadlocks or
-            # diverges (full-course study, BENCH.md).
+            # diverges (full-course study).
             # Degraded-execution escape (cfg.hold_exec_k): once the last
             # hold_exec_k solves ALL failed, holding has demonstrably
             # stopped helping — execute the unconverged plan, but ONLY
             # finite ones and ONLY through the sanitize_exec physical
             # envelope + the safety filters (raw degraded execution
-            # NaN-diverged within a step, BENCH.md round 5).
+            # NaN-diverged within a step, round-5 study).
             ok = sol.feasible
             degraded = jnp.zeros_like(ok)
             if cfg.hold_exec_k is not None:
@@ -607,10 +605,10 @@ def make_lpv_fleet_step(track: Track, cfg: ExperimentConfig):
 def make_lpv_fleet_rollout(track: Track, cfg: ExperimentConfig, steps: int):
     """Fixed-step fully-on-device closed-loop rollout: ``lax.scan`` over
     control steps, so a whole experiment (or a sweep/Monte-Carlo chunk) is
-    ONE device program with no host dispatch between steps — dispatch costs
-    more than the solves at small batch sizes over a remote backend. The
+    ONE device program with no host dispatch between steps — at small batch
+    sizes a dispatch per step can cost more than the solves. The
     reference's outer loop is host Python by construction
-    (``LPV_HP_N_main.py:96``); this is the TPU-native alternative for
+    (``LPV_HP_N_main.py:96``); this is the on-device alternative for
     fixed-step workloads (benchmarks, sweeps). ``run_lpv_experiment`` keeps
     the host loop for data-dependent termination + IO.
 
@@ -677,15 +675,16 @@ def resolve_single_fleet_schedule(cfg: ExperimentConfig) -> ExperimentConfig:
     defaults (the batch pays its slowest problem's epochs and the
     associative path streams through HBM, so both choices flip there).
 
-    Measured at N=125 on v5e (BENCH.md):
+    Chosen at N=125:
       - epoch_len 15: frequent rho adaptation roughly halves warm
         iteration counts vs the batch-tuned epoch 30;
-      - assoc (blocked log-depth Riccati, ops/lqr.py): p50 37 ms vs
-        63 ms sequential at equal tolerance, 100% feasible;
+      - assoc (blocked log-depth Riccati, ops/lqr.py): lower latency than
+        the sequential scan at equal tolerance on the accelerator it was
+        chosen on; its effect on the H100 awaits measurement;
       - admm_iters >= 1000: the Highway hard window (three agents
         entering the k=0.35 curve at s=25-33) needs 600-1000 iterations
         on a few steps; a 300-cap executes unconverged plans there until
-        the fleet deadlocks and diverges (full-course study, BENCH.md).
+        the fleet deadlocks and diverges (full-course study).
         The reference runs OSQP with max_iter=500000 (LPV_Planner.py:233)
         — budget-capped it is not. Early exit on residuals makes the
         higher cap free on easy steps.

@@ -3,7 +3,8 @@
 ``planner/scripts/LPV_HP_N_main.py`` with ``config_files/config_LPV.py``).
 
 Runs the reference's flagship LPV configuration — 3 agents, N=125,
-dt=0.025, Highway — saves the reference on-disk schema + figures.
+dt=0.025, Highway — saves the reference on-disk schema, and figures
+where matplotlib is installed.
 
     python scripts/lpv_main.py [--agents 3] [--N 125] [--steps 600]
                                [--map Highway] [--out data/LPV3r]
@@ -13,7 +14,7 @@ import argparse
 import sys
 import os
 
-from colaborativempc_tpu.scripts._common import setup_backend
+from colaborativempc_tpu.scripts._common import save_figures, setup_backend
 setup_backend()
 
 import numpy as np
@@ -34,11 +35,7 @@ def main():
     from colaborativempc_tpu.config import (
         ExperimentConfig, lpv_gains, SolverConfig,
     )
-    from colaborativempc_tpu.geometry import make_track
     from colaborativempc_tpu.runtime import run_lpv_experiment, ExperimentIO
-    from colaborativempc_tpu.runtime.plotting import (
-        plot_experiment, plot_performance,
-    )
 
     cfg = ExperimentConfig(
         n_agents=args.agents, N=args.N, dt=args.dt, max_it=args.steps,
@@ -48,9 +45,7 @@ def main():
     res = run_lpv_experiment(cfg, io=io)
     io.save_all()
 
-    track = make_track(cfg.map_type)
-    plot_experiment(track, res.states, path=args.out)
-    plot_performance(res.states, cfg.dt, path=args.out)
+    save_figures(cfg.map_type, res.states, cfg.dt, args.out)
     print(f"steps={res.steps} finished={res.finished} "
           f"feasible={res.feasible.all()} "
           f"min_dist_exec={res.min_dist_exec.min():.3f} "

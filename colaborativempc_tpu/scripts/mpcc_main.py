@@ -16,7 +16,7 @@ planner family).
 import argparse
 import dataclasses
 
-from colaborativempc_tpu.scripts._common import setup_backend
+from colaborativempc_tpu.scripts._common import plotting, setup_backend
 setup_backend()
 
 import numpy as np
@@ -81,8 +81,9 @@ def main():
     res = run_mpcc_experiment(cfg, track=track)
 
     if args.plot:
-        from colaborativempc_tpu.runtime.plotting import plot_experiment
-        plot_experiment(track, res.states[:, None, :], path=cfg.path)
+        mod = plotting()
+        if mod is not None:
+            mod.plot_experiment(track, res.states[:, None, :], path=cfg.path)
     warm = res.step_times[3:] if len(res.step_times) > 3 else res.step_times
     lap = f" lap_time={res.lap_time:.2f}s" if res.lap_time else ""
     print(f"steps={res.steps} finished={res.finished} "

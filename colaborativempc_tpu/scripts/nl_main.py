@@ -12,7 +12,7 @@ import argparse
 import os
 import sys
 
-from colaborativempc_tpu.scripts._common import setup_backend
+from colaborativempc_tpu.scripts._common import save_figures, setup_backend
 setup_backend()
 
 import numpy as np
@@ -49,12 +49,8 @@ def main():
     from colaborativempc_tpu.config import (
         ExperimentConfig, nl_gains, SolverConfig, OCDConfig,
     )
-    from colaborativempc_tpu.geometry import make_track
     from colaborativempc_tpu.runtime import (
         run_nl_experiment, ExperimentIO, load_lambdas,
-    )
-    from colaborativempc_tpu.runtime.plotting import (
-        plot_experiment, plot_performance,
     )
 
     cfg = ExperimentConfig(
@@ -70,9 +66,7 @@ def main():
     res = run_nl_experiment(cfg, lambdas0=lam0, io=io)
     io.save_all(lambdas=res.lambdas)
 
-    track = make_track(cfg.map_type)
-    plot_experiment(track, res.states, path=out)
-    plot_performance(res.states, cfg.dt, path=out)
+    save_figures(cfg.map_type, res.states, cfg.dt, out)
     print(f"steps={res.steps} finished={res.finished} "
           f"feasible={res.feasible.all()} "
           f"OCD mean={res.ocd_iterations.mean():.1f} "

@@ -1,7 +1,7 @@
 """Scoped float64 islands.
 
 The reference's solvers run full float64 (OSQP/IPOPT, ``LPV_Planner.py:
-222-239``); this framework is float32-first for the TPU MXU/VPU, with
+222-239``); this framework is float32-first (full float32, never TF32), with
 float64 available as an *island*: code that requests ``dtype="float64"``
 (ExperimentConfig.dtype, ``fit_centerline(..., dtype=jnp.float64)``) runs
 under a scoped ``jax_enable_x64`` toggle so its arrays and traces really are
@@ -14,10 +14,10 @@ arrays f32 under ``jax_enable_x64=True`` (weak Python literals do not
 promote them). The island only changes what *requested* f64 means. jit
 caches key on the flag, so toggling re-traces rather than mixing.
 
-Note: TPU hardware has no native f64 — the island targets CPU (tests,
-host-side geometry tables, high-precision validation runs); on TPU backends
-XLA emulates f64 slowly. ``run_*_experiment`` enter the island
-automatically when ``cfg.dtype == "float64"``.
+Note: the H100 runs float64 natively, at a fraction of its float32 rate,
+so the island works on the GPU as well as on the CPU (tests, host-side
+geometry tables, high-precision validation runs). ``run_*_experiment``
+enter the island automatically when ``cfg.dtype == "float64"``.
 """
 
 from __future__ import annotations

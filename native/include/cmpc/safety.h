@@ -12,7 +12,7 @@
 // all-stop fallback (every beta = 0, exactly the standstill distances)
 // backstops the guarantee against per-agent beta coupling. A symmetric
 // stop must never be the first resort — it is a fixed point the fleet
-// can park in (round-5 study, BENCH.md).
+// can park in (round-5 study).
 #pragma once
 
 #include <algorithm>

@@ -3,7 +3,7 @@
 Each process owns 4 virtual CPU devices; ``jax.distributed.initialize``
 wires the two controllers together (gloo cross-process collectives) and the
 (2 scenarios x 4 agents) mesh spans all 8 global devices — the scenario
-axis crosses the process (DCN-analogue) boundary, exactly the multi-host
+axis crosses the process (host-network-analogue) boundary, exactly the multi-host
 layout of parallel/multihost.py. The worker runs one sharded LPV fleet step
 over the global mesh and checks its addressable shards against the
 single-device reference step computed locally.

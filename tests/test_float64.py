@@ -19,10 +19,6 @@ from colaborativempc_tpu.geometry import make_track, track_from_json
 from colaborativempc_tpu.utils.precision import x64_island, dtype_island
 from colaborativempc_tpu.runtime import run_lpv_experiment, run_nl_experiment
 
-REF_TRACK = ("/root/reference/Matlab-tests/MPCC-master/C++/Params/"
-             "track.json")
-
-
 def test_island_scoped_and_restores():
     assert not jax.config.jax_enable_x64
     with x64_island():
@@ -35,13 +31,13 @@ def test_island_scoped_and_restores():
         assert not jax.config.jax_enable_x64
 
 
-def test_f64_tracks_no_truncation():
+def test_f64_tracks_no_truncation(track_json):
     """make_track / track_from_json with dtype=float64 emit real f64 tables
     with zero truncation warnings (the round-2 dead-knob finding)."""
     with warnings.catch_warnings(record=True) as wlist:
         warnings.simplefilter("always")
         t1 = make_track("Highway", dtype=jnp.float64)
-        t2 = track_from_json(REF_TRACK, dtype=jnp.float64)
+        t2 = track_from_json(track_json, dtype=jnp.float64)
     trunc = [w for w in wlist if "truncated" in str(w.message)]
     assert not trunc, [str(w.message) for w in trunc]
     assert t1.x0.dtype == jnp.float64

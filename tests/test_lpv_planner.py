@@ -295,7 +295,7 @@ def test_heterogeneous_fleet_limits():
 def test_single_fleet_schedule_resolution():
     """run_lpv_experiment's N>=48 latency schedule fills only UNSET solver
     knobs (epoch 15, blocked-assoc Riccati, 1000-iteration cap — the
-    full-course Highway study, BENCH.md); explicit pins always win, and
+    full-course Highway study); explicit pins always win, and
     short horizons are untouched."""
     from colaborativempc_tpu.config import SolverConfig
     from colaborativempc_tpu.runtime.simulate import (
@@ -478,7 +478,7 @@ def test_hold_sep_boost_noop_without_holds():
 def test_hold_sep_boost_pushes_away_from_holding_neighbour():
     """A neighbour with hold_count > 0 broadcasts a stale plan (its tail
     collapses toward a stationary point — the round-4 near-pass failure
-    mode, BENCH.md); with hold_sep_boost the other agents' separation
+    mode); with hold_sep_boost the other agents' separation
     reward toward THAT neighbour is scaled up, so their next plans keep
     more distance from it than without the boost."""
     import jax.numpy as jnp

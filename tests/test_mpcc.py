@@ -32,7 +32,6 @@ from colaborativempc_tpu.runtime.racing import (
 )
 
 P = PacejkaParams()
-REF_MPCC = "/root/reference/Matlab-tests/MPCC-master/C++/Params"
 
 
 def _warm_inputs(N=20, dt=0.05):
@@ -122,12 +121,11 @@ def test_normalized_solve_matches_raw():
                                np.asarray(raw.u_pred), atol=2e-2)
 
 
-@pytest.mark.skipif(not os.path.exists(REF_MPCC),
-                    reason="reference MPCC Params not available")
-def test_reference_config_loading():
-    """The reference's own Params/config.json master file loads end to end
+def test_reference_config_loading(mpcc_params_dir):
+    """A reference-layout Params/config.json master file loads end to end
     (main.cpp:33-41): model params, bounds, Ts/n_sqp/sqp_mixing, the
     normalisation JSON, and the track path."""
+    REF_MPCC = mpcc_params_dir
     cfg = mpcc_config_from_json(os.path.join(REF_MPCC, "config.json"))
     assert cfg.dt == pytest.approx(0.02)
     assert cfg.n_sqp == 2 and cfg.n_reset == 5
@@ -165,14 +163,12 @@ def test_config_json_roundtrip(tmp_path):
     assert back == cfg
 
 
-@pytest.mark.skipif(not os.path.exists(REF_MPCC),
-                    reason="reference MPCC Params not available")
-def test_race_fitted_reference_track():
-    """Library-call closed loop on the reference's own track JSON, driven
-    entirely from its master config.json: progresses, no solver failures,
-    stays within the measured corridor (+slack)."""
+def test_race_fitted_reference_track(mpcc_params_dir):
+    """Library-call closed loop on a reference-format track JSON, driven
+    entirely from a reference-layout master config.json: progresses, no
+    solver failures, stays within the measured corridor (+slack)."""
     cfg = mpcc_config_from_json(
-        os.path.join(REF_MPCC, "config.json"),
+        os.path.join(mpcc_params_dir, "config.json"),
         N=16, n_sim=60, verb=0)
     track = load_mpcc_track(cfg)
     res = run_mpcc_experiment(cfg, track=track)

@@ -258,7 +258,7 @@ def test_hold_vx_scale_ramp():
     assert s[1] == 1.0                # transient holds retry full-speed
     assert abs(s[2] - 0.6) < 1e-6     # the reset rung engages the pass
     assert abs(s[3] - 0.6) < 1e-6     # and it clamps there (deeper
-    # decay and earlier ramps both measured worse, BENCH.md round 5)
+    # decay and earlier ramps both measured worse, round-5 study)
     off = ExperimentConfig(hold_vx_frac=None, gains=lpv_gains())
     assert (np.asarray(hold_vx_scale(off, hc)) == 1.0).all()
 

@@ -39,6 +39,24 @@ def test_lpv_main_then_replay_and_model_eval(tmp_path, monkeypatch):
     _run("paper_figs", [out, "--out", str(tmp_path / "figs")], monkeypatch)
 
 
+@pytest.mark.parametrize("script", ["lpv_main", "nl_main"])
+def test_entry_points_run_without_matplotlib(script, tmp_path, monkeypatch,
+                                             capsys):
+    """Without matplotlib the runs and their records are unchanged; the
+    figures are skipped with one line saying so."""
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
+    monkeypatch.delitem(sys.modules, "colaborativempc_tpu.runtime.plotting",
+                        raising=False)
+    out = str(tmp_path / script)
+    _run(script, ["--agents", "2", "--N", "8", "--steps", "2",
+                  "--out", out, "--verb", "0"], monkeypatch)
+    assert os.path.exists(os.path.join(out, "csv", "0", "states.dat"))
+    assert not os.path.exists(os.path.join(out, "track.png"))
+    lines = [ln for ln in capsys.readouterr().out.splitlines()
+             if ln.startswith("figures skipped")]
+    assert len(lines) == 1 and "matplotlib" in lines[0]
+
+
 def test_nl_main_gauss_seidel(tmp_path, monkeypatch):
     out = str(tmp_path / "nl")
     _run("nl_main", ["--agents", "2", "--N", "8", "--steps", "3",

@@ -6,7 +6,6 @@ reference's own validation style (spline vs analytic curves,
 Tests/spline_test.cpp) plus round-trip identities.
 """
 
-import os
 
 import numpy as np
 import jax
@@ -19,7 +18,6 @@ from colaborativempc_tpu.geometry import (
     curvature, halfwidth,
 )
 
-REF_TRACK_JSON = "/root/reference/Matlab-tests/MPCC-master/C++/Params/track.json"
 
 
 @pytest.fixture()
@@ -151,13 +149,11 @@ def test_boundary_halfwidths():
     assert np.allclose(hw, 0.3, atol=0.02)
 
 
-@pytest.mark.skipif(not os.path.exists(REF_TRACK_JSON),
-                    reason="reference checkout not mounted")
-def test_reference_track_json_ingests(x64):
-    """The actual recorded MPCC track (489 measured centerline points with
-    inner/outer boundaries) fits, closes, and round-trips."""
-    track = track_from_json(REF_TRACK_JSON, n_segments=800,
-                            dtype=jnp.float64)
+def test_reference_track_json_ingests(x64, track_json):
+    """A reference-format MPCC track JSON (489 centerline points with
+    inner/outer boundaries, sampled from the in-repo oval_mt) fits,
+    closes, and round-trips."""
+    track = track_from_json(track_json, n_segments=800, dtype=jnp.float64)
     assert not bool(track.open_flag)          # it is a closed race track
     L = float(track.track_length[0])
     assert L > 5.0                            # sane total length
